@@ -12,9 +12,9 @@ lint:
 bench:
 	$(PYTHON) bench.py
 
+# builds graphdot_tpu/native/_packer-<hash>.so (also done on first use)
 native:
-	g++ -O3 -march=native -shared -fPIC \
-	    -o graphdot_tpu/native/_packer.so graphdot_tpu/native/packer.cpp
+	$(PYTHON) -c "from graphdot_tpu import native; assert native.available()"
 
 native-test:
 	g++ -O2 -o /tmp/graphdot_tpu_test_packer \
@@ -23,5 +23,5 @@ native-test:
 	/tmp/graphdot_tpu_test_packer
 
 clean:
-	rm -f graphdot_tpu/native/_packer.so
+	rm -f graphdot_tpu/native/_packer*.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -9,11 +9,10 @@ maximin reduction over the nodal similarity matrix the solver returns.
 
 The headline number times the fully on-device pipeline
 (``MaxiMin.device_distance_fn``: all nodal pair solves + the masked
-maximin reduction in one jitted program) with the scan-slope method
-(``util/timing.py``), which cancels the dev harness's ~20-45 ms
-per-call dispatch latency. The host-orchestrated ``metric(graphs)``
-path (per-size-class chunks + numpy reduction + hotspot gradients) is
-reported alongside as wall time.
+maximin reduction in one jitted program) on the host clock, ending in
+``block_until_ready``. The host-orchestrated ``metric(graphs)`` path
+(per-size-class chunks + numpy reduction + hotspot gradients) is
+reported alongside. Needs an NVIDIA GPU.
 """
 import json
 import time
@@ -23,6 +22,8 @@ import numpy as np
 
 def main(n_graphs=128, reps=3):
     from graphdot_tpu.util import enable_compilation_cache
+    from graphdot_tpu.util.card import describe, steady_seconds
+    card = describe()
     enable_compilation_cache()
 
     from graphdot_tpu.metric import MaxiMin
@@ -30,7 +31,6 @@ def main(n_graphs=128, reps=3):
         KroneckerDelta, SquareExponential, TensorProduct
     )
     from graphdot_tpu.testing import random_molecule_set
-    from graphdot_tpu.util.timing import scan_device_time
 
     graphs = random_molecule_set(11, n_graphs, n_atoms_range=(9, 24))
     metric = MaxiMin(
@@ -40,8 +40,10 @@ def main(n_graphs=128, reps=3):
     )
     n_pairs = n_graphs * (n_graphs + 1) // 2
 
-    # --- device-side pipeline, scan-slope timed (unbiased) ---
+    # --- device-side pipeline ---
+    import jax
     fn, theta0 = metric.device_distance_fn(graphs)
+    fn = jax.jit(fn)
     D_dev = np.asarray(fn(theta0))
 
     D = metric(graphs)  # host-orchestrated path, warm up / compile
@@ -53,16 +55,16 @@ def main(n_graphs=128, reps=3):
     drift = float(np.max(np.abs(D_dev - D)))
     assert drift < 5e-3, f'device-vs-host maximin drift {drift}'
 
-    dt_dev, _ = scan_device_time(fn, theta0, w1=4, w2=16)
+    _, dt_dev = steady_seconds(fn, theta0, reps=10)
 
-    # host-orchestrated wall time (includes dispatch latency; what an
-    # interactive user of the sklearn-style API sees)
+    # host-orchestrated wall time (what an interactive user of the
+    # sklearn-style API sees)
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         metric(graphs)
         times.append(time.perf_counter() - t0)
-    dt_host = min(times)
+    dt_host = float(np.median(times))
 
     # gradient-path timing (hotspot-restricted analytic gradient)
     t0 = time.perf_counter()
@@ -72,16 +74,17 @@ def main(n_graphs=128, reps=3):
 
     print(json.dumps({
         'metric': f'MaxiMin distance matrix ({n_graphs} molecules)',
-        'value': round(n_pairs / dt_dev, 1),
+        'value': n_pairs / dt_dev,
         'unit': 'graph-pairs/s',
         'details': {
-            'ms_per_matrix_device': round(dt_dev * 1e3, 2),
-            'ms_per_matrix_host_dispatched': round(dt_host * 1e3, 1),
-            'ms_per_matrix_with_gradient': round(dt_grad * 1e3, 1),
+            'ms_per_matrix_device': dt_dev * 1e3,
+            'ms_per_matrix_host_dispatched': dt_host * 1e3,
+            'ms_per_matrix_with_gradient': dt_grad * 1e3,
             'device_vs_host_drift': drift,
             'n_pairs': n_pairs,
-            'timing': 'scan-slope device (util/timing.py)',
+            'backend': metric.backend.mode,
         },
+        'card': card,
     }))
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Full NUTS posterior over marginalized-graph-kernel hyperparameters —
-the headline new capability of the TPU build (BASELINE.json north star):
+the headline new capability of this build (BASELINE.json north star):
 instead of the reference's L-BFGS point estimate, sample the posterior of
 (p, q, node theta, edge theta) for a GPR over molecules, with chains
-vmapped (and shardable across a TPU mesh)."""
+vmapped (and shardable across a device mesh)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,9 +25,8 @@ kernel = MarginalizedGraphKernel(
     TensorProduct(element=KroneckerDelta(0.2)),
     TensorProduct(length=SquareExponential(0.3)),
     q=0.05,
-    # long-lived sampling runs on TPU benefit from the fused solver:
-    # backend='pallas' gives ~3x samples/s after its one-time Mosaic
-    # compile (pair with graphdot_tpu.util.enable_compilation_cache)
+    # backend='auto' (the default) runs the fused PCG kernel on a GPU,
+    # primal and gradient solves alike, and the XLA solver elsewhere
 )
 logprob = GPRLogProb(kernel, graphs, y, alpha=1e-2, normalize_y=True)
 

@@ -2,10 +2,10 @@
 """Protein-scale Gram matrix: contact-map graphs with hundreds of
 residues, where the product space n1*n2 reaches 1e4-1e6.
 
-On TPU the fused Pallas backend automatically switches to its streaming
-kernel for pairs this large (CG state resident in VMEM, the edge
-coupling matrix streamed from HBM in row tiles); on CPU the same code
-runs the XLA edge backend. See bench_protein.py for the timed version.
+Pairs this large exceed the fused kernel's shared-memory budget, so
+``backend='auto'`` solves them with the XLA edge solver, on a GPU and on
+the CPU alike; ``backend='kron'`` factorizes the smooth edge kernel
+instead. See bench_protein.py for the timed version.
 """
 import numpy as np
 

@@ -1,4 +1,4 @@
-"""GraphDot-TPU: TPU-native marginalized graph kernels and Gaussian-process
+"""GraphDot in JAX: marginalized graph kernels and Gaussian-process
 models on graphs.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the

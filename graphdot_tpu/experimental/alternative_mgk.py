@@ -1,7 +1,7 @@
 """Marginalized graph kernel evaluated at an explicit list of graph-index
 pairs (reference: ``graphdot/experimental/alterantive_mgk/_kernel.py:11``).
 
-In the TPU build this is a thin specialization: the batched solver already
+Here this is a thin specialization: the batched solver already
 consumes arbitrary job lists, so no separate backend is needed.
 """
 import numpy as np

@@ -3,7 +3,7 @@
 API parity with the reference ``graphdot/graph/__init__.py:40`` (Graph,
 permute, adjacency_matrix, laplacian, has_unified_types, unify_datatype,
 from_networkx/from_ase/from_pymatgen/from_rdkit/to_networkx), rebuilt for
-a TPU-native pipeline: graphs are plain host-side column frames; the
+a JAX pipeline: graphs are plain host-side column frames; the
 padded struct-of-arrays device layout lives in
 :mod:`graphdot_tpu.graph.batch` (the OctileGraph analogue) and is cached
 per graph in ``graph.cookie``.
@@ -17,8 +17,6 @@ import scipy.sparse
 from ..util.cookie import VolatileCookie
 from .frame import DataFrame
 from .typetool import common_min_type, _is_scalar_dtype
-from ._from_networkx import _from_networkx
-from ._to_networkx import _to_networkx
 
 __all__ = ['Graph']
 
@@ -188,10 +186,10 @@ class Graph:
         block-diagonal over the member-pair blocks, so one solve over a
         union pair yields every member-pair kernel value exactly — the
         basis of the cross-product pair packing in
-        :mod:`graphdot_tpu.inference.gram` (the TPU replay of the
+        :mod:`graphdot_tpu.inference.gram` (a replay of the
         reference's dense-vs-sparse octile duality,
         ``graphdot/cpp/marginalized_kernel.h:219-354``, trading padded
-        zeros for MXU tile occupancy).
+        zeros for matrix-unit tile occupancy).
         """
         graphs = list(graphs)
         if not graphs:
@@ -224,6 +222,7 @@ class Graph:
     @classmethod
     def from_networkx(cls, graph, weight=None):
         """Convert from a NetworkX ``Graph``."""
+        from ._from_networkx import _from_networkx
         return _from_networkx(cls, graph, weight)
 
     @classmethod
@@ -257,4 +256,5 @@ class Graph:
     def to_networkx(self):
         """Convert to a NetworkX ``Graph`` with all node and edge
         attributes."""
+        from ._to_networkx import _to_networkx
         return _to_networkx(self)

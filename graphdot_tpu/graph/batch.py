@@ -1,10 +1,10 @@
-"""Padded struct-of-arrays graph batches — the TPU-native device layout.
+"""Padded struct-of-arrays graph batches — the device layout.
 
 This is the analogue of the reference's ``OctileGraph``
 (``graphdot/kernel/marginalized/_octilegraph.py:13``): where the CUDA build
-packs sparse 8x8 octiles with nz bitmasks for warp-level loads, the TPU
+packs sparse 8x8 octiles with nz bitmasks for warp-level loads, this
 build packs each graph into dense, padded arrays so that batches of graph
-pairs map onto MXU-shaped contractions with static shapes:
+pairs map onto dense contractions with static shapes:
 
 - ``adj``: [n, n] symmetrized weighted adjacency (f32)
 - ``degree``: [n] row sums (self-loops counted once, matching the CPU

@@ -6,7 +6,7 @@ ships a dependency-free reimplementation of the same MNOM algorithm
 (:mod:`.mnom`: column-net hypergraph, exact tile-aligned bisection
 targets, message nets) and additionally races it against identity, RCM,
 and a spectral ordering, returning whichever yields the fewest nonempty
-TILE x TILE blocks — the quantity that governs the TPU solver's matvec
+TILE x TILE blocks — the quantity that governs the solver's matvec
 cost.
 """
 import numpy as np

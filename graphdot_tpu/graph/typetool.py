@@ -4,7 +4,7 @@ Numpy-2-compatible re-design of the reference type bridge
 (``graphdot/codegen/typetool.py:26,114``). The reference used this layer to
 map Python feature values onto aligned C structs for CUDA codegen; here it
 only has to find the smallest common dtype so that feature columns can be
-packed into dense jnp arrays for the TPU solver.
+packed into dense jnp arrays for the solver.
 """
 import numpy as np
 

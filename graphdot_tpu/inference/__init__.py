@@ -1,7 +1,7 @@
 """Bayesian inference over kernel hyperparameters (NUTS / HMC / SMC / VI).
 
 This layer has no reference counterpart: GraphDot stops at L-BFGS point
-estimates (``gaussian_process/base.py:129-148``); the TPU build's north
+estimates (``gaussian_process/base.py:129-148``); this build's north
 star is full posteriors with chains/particles sharded across a device mesh
 (BASELINE.json).
 """

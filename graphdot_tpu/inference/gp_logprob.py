@@ -3,7 +3,7 @@
 The reference optimizes a point estimate of theta with L-BFGS
 (``gaussian_process/base.py:129-148``); here the same log-marginal
 likelihood becomes a traced JAX log-probability that feeds the NUTS / HMC /
-SMC / VI samplers in this package — the north-star capability of the TPU
+SMC / VI samplers in this package — the north-star capability of this
 build (BASELINE.json).
 """
 

@@ -3,7 +3,7 @@
 Implements multinomial NUTS (Hoffman & Gelman 2014; Betancourt 2017) with
 the checkpoint-based *iterative* tree expansion (Phan & Pradhan 2019) so
 the whole transition is expressible with ``lax.while_loop`` — no recursion,
-fully jittable, shardable across chains on a TPU mesh.
+fully jittable, shardable across chains on a device mesh.
 
 U-turn bookkeeping: leaves of a depth-d subtree are visited left-to-right;
 leaf m starts a nested subtree iff its low bits are zero, and the live

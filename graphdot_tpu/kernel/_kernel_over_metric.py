@@ -1,5 +1,5 @@
 """Kernel defined as a function of a distance metric (fills the role of
-the reference's ``graphdot/kernel/_kernel_over_metric.py:11``), TPU-first:
+the reference's ``graphdot/kernel/_kernel_over_metric.py:11``), in JAX:
 the scalar map f runs on device and all of its derivatives — with respect
 to both its own hyperparameters and the distance input (for chaining
 through the metric's gradient) — come from one ``jax.jacfwd`` pass

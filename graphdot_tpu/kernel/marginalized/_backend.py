@@ -1,80 +1,65 @@
 """Backend selection (reference: ``graphdot/kernel/marginalized/_backend.py``
 and ``_backend_factory.py``).
 
-The TPU build has a single JAX/XLA backend with three matvec strategies:
+One JAX/XLA engine with four solver modes:
 
-- ``'pallas'`` (default for ``'auto'`` on TPU): the edge-factored operands
-  with the whole PCG loop fused into a single VMEM-resident Pallas kernel
-  per block of pairs (the counterpart of the reference's one-kernel CUDA
-  solver). The coupling matrix, incidence one-hots, and CG state stay in
-  VMEM across all iterations, so per-iteration HBM traffic drops to zero,
-  and ~f32 accuracy needs only 2 MXU passes per contraction
-  (split-operand trick, see ``ops/pallas_pcg.py``). On v5e this is the
-  fastest path: 13.7 vs 23.3 ms per sustained 8256-pair Gram build
-  (~600k vs ~355k pairs/s) at 1e-6 agreement with 'edge'. Mosaic
-  compilation costs ~30-60 s per distinct pair-group shape on the first
-  run; the persistent compilation cache (enabled automatically when
-  'auto' resolves to pallas) makes every later process start warm.
-- ``'edge'`` (default for ``'auto'`` off-TPU): edge-factored matvec —
-  four MXU matmuls per CG iteration over per-pair edge-kernel matrices.
-  Scales as O(M1 M2 (n1+n2)) per matvec; also the automatic fallback if
-  the Pallas path fails to compile.
-- ``'dense'``: dense product-graph coupling tensor — one big contraction
-  per CG iteration, O(n1^2 n2^2); the direct transcription of the CPU
-  oracle, used for validation and tiny graphs.
+- ``'pallas'``: the fused PCG kernel (``ops/pallas_pcg.py``), one program
+  per pair running that pair's whole CG loop on chip, as the reference's
+  one-block-per-pair CUDA solver does. Needs an NVIDIA GPU. Pairs whose
+  working set exceeds one block's shared memory take ``'edge'``
+  (``pallas_pcg.fits``).
+- ``'edge'``: edge-factored matvec in XLA, four batched one-hot
+  contractions per CG iteration over per-pair edge-kernel matrices.
+  O(M1 M2 (n1+n2)) per matvec.
+- ``'dense'``: dense product-graph coupling tensor, one contraction per CG
+  iteration, O(n1^2 n2^2); the direct transcription of the CPU oracle,
+  for validation and tiny graphs.
+- ``'kron'``: the sum-of-Kronecker node-space solver for protein-scale
+  pairs (``_kron.py``).
 
-Overrides: ``GRAPHDOT_BACKEND=<mode>`` forces the resolution of 'auto'.
+``'auto'`` resolves to :data:`GPU_MODE` on a GPU and to ``'edge'``
+elsewhere. On an H100 the fused kernel built the 8,256-pair Gram of 128
+molecules 7x faster than ``'edge'`` (``PERF.md``, Findings).
 """
-import os
+import jax
 
 
 class Backend:
     """Computing engine that solves the marginalized graph kernel's
-    generalized Laplacian equation."""
+    generalized Laplacian equation. ``'pallas'`` off a GPU is an
+    error."""
 
     MODES = ('edge', 'dense', 'pallas', 'kron')
 
-    def __init__(self, mode='edge', fallback=None):
+    def __init__(self, mode='edge'):
         if mode not in self.MODES:
             raise ValueError(f'Unknown backend mode {mode!r}')
+        if mode == 'pallas' and jax.default_backend() != 'gpu':
+            raise RuntimeError(
+                "backend 'pallas' compiles a Triton kernel and needs an "
+                f'NVIDIA GPU; the default JAX backend is '
+                f"{jax.default_backend()!r}. Use backend='edge'.")
         self.mode = mode
-        #: mode to switch to (once) if this one fails to compile; set when
-        #: the mode was chosen automatically rather than by the user
-        self.fallback = fallback
 
-    def fall_back(self):
-        """Demote to the fallback mode after a compile failure. Returns
-        True if a switch happened."""
-        if self.fallback and self.fallback != self.mode:
-            self.mode = self.fallback
-            self.fallback = None
-            return True
-        return False
+
+#: the mode 'auto' resolves to on a GPU: the winner of the end-to-end
+#: comparison with 'edge' (``scripts/compare_solvers.py``)
+GPU_MODE = 'pallas'
 
 
 def _auto_mode():
-    forced = os.environ.get('GRAPHDOT_BACKEND')
-    if forced:
-        return forced, None
-    import jax
-    if jax.default_backend() == 'tpu':
-        # production TPU path; pre-warm the persistent Mosaic/XLA cache so
-        # the per-shape compile cost is paid once per machine, not per
-        # process (the analogue of the reference's source-keyed NVCC
-        # module cache)
-        if not os.environ.get('GRAPHDOT_NO_CACHE'):
-            from ...util.compile_cache import enable_compilation_cache
-            enable_compilation_cache()
-        return 'pallas', 'edge'
-    return 'edge', None
+    if jax.default_backend() == 'gpu':
+        from ...util.compile_cache import enable_compilation_cache
+        enable_compilation_cache()
+        return GPU_MODE
+    return 'edge'
 
 
 def backend_factory(backend, **kwargs):
     if isinstance(backend, Backend):
         return backend
     if backend == 'auto':
-        mode, fallback = _auto_mode()
-        return Backend(mode, fallback=fallback)
+        return Backend(_auto_mode())
     if backend in Backend.MODES:
         return Backend(backend)
     raise ValueError(f"Unknown backend {backend!r}")

@@ -3,8 +3,8 @@
 The edge-factored matvec ``S1^T (T o (D1 Y D2^T)) S2`` couples the two
 graphs through the M1 x M2 edge-kernel matrix ``T`` — at protein scale
 (M ~ 1e4 directed contacts) T reaches GBs per pair and the solve is
-HBM-bandwidth-bound no matter how it is scheduled (the streaming Pallas
-kernel re-reads T once per CG iteration).
+bound by device-memory bandwidth no matter how it is scheduled (every CG
+iteration re-reads T).
 
 For the workload the reference's protein benchmark actually runs
 (``example/perfbench/protein-time-to-solution.py``: contact maps whose
@@ -23,7 +23,7 @@ the edge space entirely:
     A1_p[i, j] = sum_{e: src=i, dst=j} w[e] L_p(x[e])
 
 — R dense node-space [N, N] matmuls per matvec: no T, no edge-space
-operands, every FLOP on the MXU at tile-friendly sizes. Per CG
+operands, every FLOP in large dense matmuls. Per CG
 iteration this is R*(N1^2 N2 + N1 N2^2) FLOPs vs the edge path's
 ~2*M1*M2*(N1+N2): ~10x fewer at 300 residues, ~50x at 1000, with HBM
 traffic dropping from O(M1*M2) to O(R*N^2).
@@ -36,12 +36,10 @@ B2 rows (rank, node)):
     out = G' @ B2s          [c, n1, R*n2] x [c, R*n2, n2]
 
 where G' is G re-viewed with the rank axis folded into the contraction
-columns. One contraction of depth n1 and one of depth R*n2 — large,
-MXU-tile-friendly — replace the R sequential small matmuls of the naive
-form (which measured only ~24% MXU utilization; the fused form is also
-what the earlier broadcast-batched ``'crij,cjk->crik'`` attempt wanted
-to be, without the dot_general shape class that crashes the remote XLA
-compiler). ``GRAPHDOT_KRON_FUSED=0`` restores the sequential loop.
+columns. One contraction of depth n1 and one of depth R*n2 — large
+enough to fill a matrix unit's tiles — replace the R sequential small
+matmuls of the naive form. ``GRAPHDOT_KRON_FUSED=0`` restores the
+sequential loop.
 
 All theta-dependence sits in the C matrix (folded into the side-2
 basis pre-scatter); the basis values and scatter patterns are data.
@@ -82,18 +80,6 @@ def _plain_scalar_columns(feats):
         if isinstance(v, tuple) or np.ndim(v) != 2:
             return None
     return feats
-
-
-def kron_eligible(ops, max_features=2):
-    """The Kronecker path applies when both sides carry the same 1-2
-    plain scalar edge-feature columns (contact maps: the residue
-    distance, optionally plus one more scalar such as a sequence
-    separation)."""
-    f1 = _plain_scalar_columns(ops.get('edge_elist_feats_1'))
-    f2 = _plain_scalar_columns(ops.get('edge_elist_feats_2'))
-    return (f1 is not None and f2 is not None
-            and set(f1) == set(f2)
-            and 1 <= len(f1) <= max_features)
 
 
 def _cheb_nodes(lo, hi, R):
@@ -140,8 +126,6 @@ def _feature_domain(x1, ew1, x2, ew2):
 
 def _normalize_ranks(ranks, names):
     """Per-feature rank tuple for the name-sorted feature columns."""
-    if ranks == 'off':          # calibration sentinel; treat as default
-        ranks = None
     if ranks is None:
         R = DEFAULT_RANK
         if len(names) > 1:
@@ -213,12 +197,11 @@ def _dense_grid_values(esrc, edst, ew, xcols, n_pad, names, axes):
     and 0 elsewhere.
 
     Two cheap [c, M]-update scatters (the edge weights, and each scalar
-    feature) replace the [c, M, Rg] float scatter-add of the stacked
-    factors — which measured ~26 ms per side per build on the
-    400-600res class (TPU scatter-add serializes badly) — and the basis
-    is then evaluated DENSELY on the grid, which is pure vectorized VPU
-    work. Assumes at most one directed edge per (i, j) (the Graph
-    contract); padding edges (w == 0) are parked in a trash slot."""
+    feature) replace the much larger [c, M, Rg] float scatter-add of
+    the stacked factors, and the basis is then evaluated DENSELY on the
+    grid, which is pure elementwise work. Assumes at most one directed
+    edge per (i, j) (the Graph contract); padding edges (w == 0) are
+    parked in a trash slot."""
     c, M = esrc.shape
     flat = jnp.where(ew != 0, esrc * n_pad + edst, n_pad * n_pad)
     ci = jnp.arange(c)[:, None]
@@ -396,10 +379,8 @@ def kron_mlgk_solve(theta_ops, *, apply_on_features, kedge, te,
 
     P, n1, n2 = diag.shape
     # chunk size: bound the [c, n*R, n] A-stacks (both sides) plus the
-    # fused matvec's [c, n1*R, n2] intermediate to ~1.5 GB of HBM.
-    # Preferring one big chunk also avoids nesting a while-loop CG
-    # inside lax.map, which the dev harness's TPU worker is fragile
-    # against (ROADMAP known-issue 1).
+    # fused matvec's [c, n1*R, n2] intermediate to ~1.5 GB of device
+    # memory.
     if chunk is None:
         budget = int(os.environ.get('GRAPHDOT_KRON_CHUNK_BYTES',
                                     3 << 29))
@@ -445,17 +426,16 @@ def kron_mlgk_solve(theta_ops, *, apply_on_features, kedge, te,
         pcf = pc.reshape(chunk, n1 * n2)
         bf = bb.reshape(chunk, n1 * n2)
 
-        # HIGH (3-pass bf16) restores ~f32 accuracy; unlike the
-        # edge-factored path no operand here is an exact-bf16 one-hot,
-        # so the 2-pass split-operand shortcut does not apply.
+        # float32 contractions at HIGHEST: on a GPU, HIGH would round
+        # the operands to TF32, and no operand here is an exact one-hot
+        # (see _solver._PRECISION).
         if fused:
             # rank sum fused into two standard batched matmuls via the
             # row-stacked factor layouts (see module docstring): one
             # contraction of depth n1, one of depth R*n2. The factors
             # come from dense-grid basis evaluation; the
             # theta-dependent grid kernel C folds into side 2 with ONE
-            # flat [c*n2^2, R] x [R, R] matmul (no broadcast-batched
-            # dot_general — the remote XLA compiler crashes on those).
+            # flat [c*n2^2, R] x [R, R] matmul.
             V1 = _dense_grid_values(es1, ed1, w1, l1, n1, names, axes)
             A1s = jnp.transpose(
                 V1.reshape(chunk, n1, n1, R), (0, 1, 3, 2)
@@ -468,22 +448,21 @@ def kron_mlgk_solve(theta_ops, *, apply_on_features, kedge, te,
                 V2f.reshape(chunk, n2, n2, R), (0, 3, 2, 1)
             ).reshape(chunk, R * n2, n2)
             # materialize the (transposed) factors once, outside the
-            # CG while-loop: without the barrier XLA fuses the
-            # transposes into the loop body and the matvec re-lays
-            # them out every iteration (measured: per-iteration cost
-            # doubled)
+            # CG while-loop: without the barrier XLA may fuse the
+            # transposes into the loop body and re-lay them out every
+            # iteration
             A1s, B2s = lax.optimization_barrier((A1s, B2s))
 
             def matvec(yf):
                 Y = yf.reshape(chunk, n1, n2)
                 G = lax.dot_general(
                     A1s, Y, (((2,), (1,)), ((0,), (0,))),
-                    precision=lax.Precision.HIGH,
+                    precision=lax.Precision.HIGHEST,
                     preferred_element_type=jnp.float32)
                 G = G.reshape(chunk, n1, R * n2)
                 O = lax.dot_general(
                     G, B2s, (((2,), (1,)), ((0,), (0,))),
-                    precision=lax.Precision.HIGH,
+                    precision=lax.Precision.HIGHEST,
                     preferred_element_type=jnp.float32)
                 return dgf * yf - O.reshape(chunk, n1 * n2)
         else:
@@ -502,11 +481,11 @@ def kron_mlgk_solve(theta_ops, *, apply_on_features, kedge, te,
                 for r in range(R):
                     G = jnp.einsum(
                         'cij,cjk->cik', A1[:, r], Y,
-                        precision=lax.Precision.HIGH,
+                        precision=lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)
                     O = jnp.einsum(
                         'cik,clk->cil', G, B2[:, r],
-                        precision=lax.Precision.HIGH,
+                        precision=lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)
                     out = out - O.reshape(chunk, n1 * n2)
                 return out
@@ -524,11 +503,8 @@ def kron_mlgk_solve(theta_ops, *, apply_on_features, kedge, te,
             return xf.reshape(chunk, n1, n2), rel
         return xf.reshape(chunk, n1, n2)
 
-    # Python loop over chunks, unrolled at trace time: wrapping the CG
-    # while-loop in lax.map produced map{while{einsum}} programs that
-    # fault the dev harness's TPU worker (the same fragility ROADMAP
-    # known-issue 1 records for scan{vmap{while}} nests); a flat
-    # sequence of chunk solves in one program is equivalent and robust.
+    # Python loop over chunks, unrolled at trace time: a flat sequence
+    # of chunk solves in one program, each with its own CG loop.
     # n_chunks is small (typically 1-8), so program-size growth is
     # bounded.
     outs = [

@@ -1,4 +1,4 @@
-"""Batched product-graph MLGK solver (TPU-native core).
+"""Batched product-graph MLGK solver.
 
 Replaces the reference CUDA solver
 (``graphdot/cpp/marginalized_kernel.h:189-490`` and
@@ -13,11 +13,13 @@ Jacobi-preconditioned conjugate-gradient solve expressed in JAX:
   ``q^2/q0^2`` right-hand-side factor is identically 1).
 
 - Instead of on-the-fly sparse octile expansion, the off-diagonal matvec
-  is either (a) a dense precomputed coupling tensor contracted on the MXU
-  (``mode='dense'``) or (b) an edge-factored form
+  is either (a) a dense precomputed coupling tensor (``mode='dense'``)
+  or (b) an edge-factored form
   ``S1 (T o (D1 Y D2^T)) S2^T`` with per-pair edge-kernel matrix
   ``T[e1,e2] = w1 w2 k_edge(e1,e2)`` and one-hot incidence matrices, i.e.
-  four MXU matmuls per CG iteration (``mode='edge'``).
+  four batched contractions per CG iteration (``mode='edge'``), run
+  either by XLA or by the fused kernel of ``ops/pallas_pcg.py``
+  (``mode='pallas'``).
 
 - Instead of a dual-RHS adjoint solve (``compute_duo``,
   ``marginalized_kernel.h:492-804``) and finite-difference theta grids
@@ -34,21 +36,28 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# CG is run in float32: on TPU the MXU's default bf16 multiplication loses
-# ~3 decimal digits per matvec, which breaks the reference's 1e-5 accuracy
-# contract. HIGH uses the 3-pass bf16 decomposition — near-exact here
-# because every matvec matmul has a one-hot operand (whose bf16 split is
-# exact), at half the MXU passes of HIGHEST. Switchable for validation.
+from ...ops.pallas_pcg import fits, fused_pcg_solver
+
+# CG runs in float32 and the XLA solver's contractions at HIGHEST. On a
+# GPU, HIGH and DEFAULT let XLA round float32 operands to TF32 (10
+# mantissa bits). Every matvec contraction has an exact 0/1 operand, but
+# the other one (the CG direction and its images) is rounded: on an H100,
+# HIGH stays within rel 1e-4 of the float64 oracle on molecules (7.3e-5)
+# but not within the 1e-5 that the fused kernel meets, and on the GPU
+# this solver runs the protein-scale pairs, where no oracle checks it
+# (PERF.md, Findings). The fused kernel keeps its own 2-pass TF32 split
+# (``ops/pallas_pcg.py``). Switchable for measurement
+# (scripts/compare_solvers.py).
 _PRECISIONS = {
     'default': lax.Precision.DEFAULT,
     'high': lax.Precision.HIGH,
     'highest': lax.Precision.HIGHEST,
 }
-_PRECISION = lax.Precision.HIGH
+_PRECISION = lax.Precision.HIGHEST
 
 
 def set_solver_precision(name):
-    """Set the MXU precision of the solver's contractions ('default',
+    """Set the precision of the XLA solver's contractions ('default',
     'high', 'highest'). Takes effect on the next trace."""
     global _PRECISION
     _PRECISION = _PRECISIONS[name]
@@ -227,7 +236,7 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     knode, kedge: microkernels (static).
     n_p_theta: number of starting-probability hyperparameters (static).
     lmin: 0 or 1 (static).
-    mode: 'dense' or 'edge' (static).
+    mode: 'dense', 'edge', 'pallas' or 'kron' (static).
     maxiter: static int bound on CG iterations.
     return_resnorm: static bool; when True, also return the per-pair
         final *relative* residual ||b - A x|| / ||b||. Converged f32
@@ -277,49 +286,7 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     precond_diag = jnp.where(ok, Vx / jnp.where(ok, dx, 1.0), 1.0)
     b = jnp.where(ok, dx, 0.0)
 
-    solve_impl = None
-    use_kron = False
-    if mode != 'dense':
-        from ._kron import kron_eligible
-        if mode == 'kron':
-            use_kron = True
-        elif mode == 'pallas':
-            # auto-switch: pairs beyond the VMEM-resident kernel's
-            # working set (protein scale) take the sum-of-Kronecker
-            # node-space path whenever the edge features allow it and
-            # rank calibration meets the accuracy contract. Measured
-            # on v5e contact maps with the fused dense-grid assembly
-            # (round 5): kron wins the ENTIRE beyond-resident range —
-            # 1715 pairs/s vs streaming's 400 at 150-300 residues,
-            # 4-5x at 400-1000 residues — so the old n1*n2 crossover
-            # (round 4's 1.2e5, when assembly cost dominated small
-            # classes) defaults to 0. The streaming kernel remains the
-            # fallback for kron-ineligible/inaccurate edge kernels.
-            import os
-            from ...ops.pallas_pcg import (
-                _RESIDENT_PAIR_LIMIT, _bytes_per_pair, _pick_tile_m
-            )
-            M1e = ops['esrc_1'].shape[1]
-            M2e = ops['esrc_2'].shape[1]
-            big = _bytes_per_pair(M1e, M2e, n1, n2) \
-                > _RESIDENT_PAIR_LIMIT
-            if big:
-                stream_ok = _pick_tile_m(
-                    M1e, -(-M2e // 128) * 128, n1, n2) is not None
-                kron_min = int(os.environ.get(
-                    'GRAPHDOT_KRON_MIN_N', 0))
-                use_kron = (
-                    os.environ.get('GRAPHDOT_KRON', '1') != '0'
-                    and not os.environ.get('GRAPHDOT_PALLAS_STREAM')
-                    # 'off': rank calibration found the edge kernel
-                    # too sharp for the factorization's accuracy
-                    # contract (GramFactory auto-calibration)
-                    and kron_ranks != 'off'
-                    and kron_eligible(ops)
-                    and (n1 * n2 > kron_min or not stream_ok)
-                )
-
-    if use_kron:
+    if mode == 'kron':
         from ._kron import kron_mlgk_solve
         if 'tol_n1' in ops:
             n_true = ops['tol_n1'] * ops['tol_n2']
@@ -382,7 +349,7 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
         M1 = esrc1.shape[1]
         M2 = esrc2.shape[1]
         T = jnp.broadcast_to(T, (P, M1, M2))
-        # one-hot incidence matrices -> all-MXU matvec. They are
+        # one-hot incidence matrices -> all-matmul matvec. They are
         # theta-independent; callers that evaluate many thetas over a
         # fixed graph set (GramFactory) pass them in precomputed.
         if 'oh_src_1' in ops:
@@ -436,20 +403,15 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
             x = x - jnp.where(valid > 0, Vx, 0.0)
         return x, Vx, valid, iters
 
-    if mode == 'pallas':
-        # primal/tangent solves run in the fused VMEM-resident kernel;
-        # the XLA matvec above is still what autodiff differentiates.
-        import os
-        from ...ops.pallas_pcg import pallas_pcg_solver
-        pmode = os.environ.get('GRAPHDOT_PALLAS_MODE') or {
-            lax.Precision.DEFAULT: 'default',
-            lax.Precision.HIGH: 'split2',
-            lax.Precision.HIGHEST: 'highest',
-        }[_PRECISION]
-        solve_impl = pallas_pcg_solver(
-            T, oh_src1, oh_dst1, oh_src2, oh_dst2,
-            diag_coef, precond_diag, tol, maxiter, mode=pmode
-        )
+    solve_impl = None
+    if mode == 'pallas' and fits(
+            esrc1.shape[1], esrc2.shape[1], n1, n2):
+        # primal, tangent and transpose solves run in the fused kernel;
+        # the XLA matvec above is what autodiff differentiates. Bigger
+        # pairs keep the XLA solve (the size rule in pallas_pcg.fits).
+        solve_impl = fused_pcg_solver(
+            T, esrc1, edst1, esrc2, edst2, diag_coef, precond_diag, tol,
+            maxiter)
 
     x_flat = solve_linear(
         matvec, b_flat, precond_flat, tol, maxiter,

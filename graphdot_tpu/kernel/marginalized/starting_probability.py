@@ -1,8 +1,8 @@
 """Starting probability of the random walk (reference:
 ``graphdot/kernel/marginalized/starting_probability.py:9-140``).
 
-TPU-native change: instead of generating a C++ expression (``gen_expr``),
-each starting probability implements ``apply(theta, node_mask)`` /
+Change from the reference: instead of generating a C++ expression
+(``gen_expr``), each starting probability implements ``apply(theta, node_mask)`` /
 host-side ``__call__`` so it can be traced into the solver. Ad-hoc
 probabilities are evaluated host-side per batch (they carry no trainable
 hyperparameters, exactly as in the reference).
@@ -102,7 +102,7 @@ class Adhoc(StartingProbability):
         Takes a node dataframe, returns a same-length ndarray.
     expr: str
         Kept for API parity with the reference (a C++ expression there);
-        unused by the TPU backend.
+        unused here.
     """
 
     def __init__(self, f, expr=''):

@@ -1,5 +1,5 @@
 """Standalone RBF kernel over vector data (fills the role of the
-reference's ``graphdot/kernel/rbf.py:11``), TPU-first: the pairwise
+reference's ``graphdot/kernel/rbf.py:11``), in JAX: the pairwise
 distance matrix and the kernel map run on device as one jitted function,
 and hyperparameter gradients come from ``jax.jacfwd`` instead of
 symbolic per-parameter differentiation."""

@@ -1,63 +1,30 @@
 """Execution policy for host-facing dense linear algebra.
 
 Every decomposition in :mod:`graphdot_tpu.linalg` runs through JAX so one
-code path serves both the TPU (float32 — the production configuration) and
-the CPU (float64 — what the sklearn-style model API defaults to, since its
+code path serves both float32 (the solver's production precision) and
+float64 (what the sklearn-style model API defaults to, since its
 closed-form LOOCV / likelihood identities assume double precision).
 
-Float64 inputs are executed under a scoped ``jax.enable_x64()``; if the
-default accelerator cannot run float64 programs (TPUs), the work is routed
-to the JAX CPU backend instead. No global configuration is touched.
+Float64 inputs are executed under a scoped ``jax.enable_x64()`` on the
+default device; a device that cannot run them raises. No global
+configuration is touched.
 """
-import functools
-import warnings
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 
 
-@functools.lru_cache(maxsize=None)
-def _f64_device():
-    """A JAX device capable of float64 programs (None if unavailable)."""
-    default = jax.devices()[0]
-    for dev in (default,) + tuple(
-        d for d in _cpu_devices() if d != default
-    ):
-        try:
-            with jax.enable_x64():
-                out = jax.jit(jnp.square)(
-                    jax.device_put(np.float64(2.0), dev))
-                if out.dtype == jnp.float64:
-                    return dev
-        except Exception:  # pragma: no cover - platform specific
-            continue
-    return None
-
-
-def _cpu_devices():
-    try:
-        return jax.devices('cpu')
-    except RuntimeError:  # pragma: no cover - cpu backend disabled
-        return ()
-
-
 def run(fn, *arrays):
     """Run a jitted array function at the precision of its inputs.
 
-    float64 inputs execute under ``enable_x64`` on an f64-capable device;
-    everything else runs with default (float32) semantics on the default
-    device. Outputs are returned as numpy arrays.
+    float64 inputs execute under ``enable_x64``; everything else runs
+    with default (float32) semantics. Both run on the default device.
+    Outputs are returned as numpy arrays.
     """
     arrays = [np.asarray(a) for a in arrays]
     if any(a.dtype == np.float64 for a in arrays):
-        dev = _f64_device()
-        if dev is None:  # pragma: no cover - no f64 hardware anywhere
-            warnings.warn(
-                'No float64-capable JAX device; computing in float32.')
-        else:
-            with jax.enable_x64():
-                out = fn(*(jax.device_put(a, dev) for a in arrays))
+        with jax.enable_x64():
+            out = fn(*map(jnp.asarray, arrays))
             return jax.tree_util.tree_map(np.asarray, out)
     out = fn(*map(jnp.asarray, arrays))
     return jax.tree_util.tree_map(np.asarray, out)

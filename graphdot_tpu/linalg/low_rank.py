@@ -12,7 +12,7 @@ Fills the role of the reference's lazy low-rank classes
   ``U diag(s^2) U^T``; pseudoinverse / logdet / powers act on ``s``.
 * Dense decompositions (SVD) run on the accelerator via
   :mod:`graphdot_tpu.linalg._exec`; the regularized ``pinvh`` uses
-  matrix-free randomized subspace iteration (all matmuls, TPU-friendly)
+  matrix-free randomized subspace iteration (all matmuls, accelerator-friendly)
   instead of the reference's host-serial ARPACK Lanczos.
 """
 import numpy as np

@@ -2,15 +2,13 @@
 ``graphdot/metric/maximin/_maximin.py:11`` + ``_backend.cu:40-408``).
 
 The reference needs a dedicated 408-line CUDA kernel because its solver
-only materializes what each thread block computes; here the TPU solver
+only materializes what each thread block computes; here the batched solver
 already returns full nodal similarity matrices per pair, so the maximin
 reduction (kernel-induced distance -> row/col min -> max), the hotspot
 tie-breaking, and the hotspot-restricted gradient are *batched masked
 reductions* over all pairs of a padded-shape group at once — no per-pair
 Python loop (round-3 rewrite of the round-2 host loop).
 """
-import warnings
-
 import numpy as np
 
 from ...graph import Graph
@@ -70,24 +68,6 @@ class MaxiMin(MarginalizedGraphKernel):
         hot = np.maximum(hot, 0)
         return dh, hot // n2, hot % n2
 
-    def _hotspot_grad_jobs(self, graphs, i_jobs, j_jobs, h1, h2, lmin):
-        """Hotspot-entry gradients with the same one-shot backend
-        demotion as :meth:`_solve_jobs`."""
-        try:
-            return self._solve_hotspot_grads(
-                graphs, i_jobs, j_jobs, h1, h2, lmin)
-        except Exception as e:
-            if not self._is_compile_failure(e) or \
-                    not self.backend.fall_back():
-                raise
-            warnings.warn(
-                f'backend failed to compile with {type(e).__name__} '
-                f'({str(e).splitlines()[0][:500]}); retrying with the '
-                f'{self.backend.mode!r} backend'
-            )
-            return self._solve_hotspot_grads(
-                graphs, i_jobs, j_jobs, h1, h2, lmin)
-
     def _hotspot_gradient(self, k12h, dk12h, k1h, k2h, dk1h, dk2h, dh):
         """Analytic gradient of the maximin distance from flat per-job
         hotspot quantities (the reference evaluates FD gradients at the
@@ -114,10 +94,9 @@ class MaxiMin(MarginalizedGraphKernel):
         This is the device core of :meth:`__call__` (which additionally
         returns hotspots/gradients, handles rectangular X/Y, and
         reduces per size-class on the host). Because it is a pure
-        traced function of theta it can be scanned, which is what
-        ``bench_maximin.py`` uses to time the device cost free of the
-        per-call dispatch latency (see ``util/timing.py``), and it
-        composes with ``jax.grad``-based inference loops.
+        traced function of theta it can be jitted whole, which is what
+        ``bench_maximin.py`` times, and it composes with
+        ``jax.grad``-based inference loops.
         """
         import jax
         import jax.numpy as jnp
@@ -287,7 +266,7 @@ class MaxiMin(MarginalizedGraphKernel):
         gradient = None
         if eval_gradient:
             timer.tic('hotspot gradients')
-            dk12 = self._hotspot_grad_jobs(
+            dk12 = self._solve_hotspot_grads(
                 all_graphs, i_jobs, j_jobs, hot1, hot2, lmin)
             grad_rows = self._hotspot_gradient(
                 k12h, dk12, k1h, k2h,

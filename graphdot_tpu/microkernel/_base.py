@@ -2,7 +2,7 @@
 
 API parity with the reference ``graphdot/microkernel/_base.py:16`` (the
 ``MicroKernel`` ABC, ``+``/``*``/``**`` combinators, ``Constant``,
-``Normalize``, ``from_sympy``), re-designed TPU-first:
+``Normalize``, ``from_sympy``), re-designed for JAX:
 
 Instead of generating CUDA C++ source (``gen_expr``) that is NVCC-JIT'ed,
 every microkernel implements :meth:`MicroKernel.apply` — a pure, vectorized
@@ -62,7 +62,7 @@ class MicroKernel(ABC):
         pass
 
     # ------------------------------------------------------------------
-    # TPU-native interface
+    # traced interface
     # ------------------------------------------------------------------
 
     @property

@@ -4,7 +4,7 @@
 Instead of printing CUDA C++ (the reference's ``cudacxxcode`` path), the
 expression is lambdified twice: once with numpy (host-side scalar
 ``__call__`` semantics, including analytic jacobians) and once with
-jax.numpy (the traced ``apply`` used inside the TPU solver).
+jax.numpy (the traced ``apply`` used inside the solver).
 """
 from collections import OrderedDict
 

@@ -1,6 +1,6 @@
 """Shared foundation of the Gaussian-process models.
 
-TPU-native redesign of the role played by the reference's
+JAX redesign of the role played by the reference's
 ``graphdot/model/gaussian_process/base.py:47-189``: targets are masked and
 standardized on host, Gram matrices arrive from the kernel layer, and all
 likelihood linear algebra executes as jitted JAX programs
@@ -104,12 +104,9 @@ class GaussianProcessRegressorBase:
             return None
         if len(X) == 0 or not all(hasattr(g, 'nodes') for g in X):
             return None
-        try:
-            from ...inference import GramFactory
-            factory = GramFactory(inner, list(X), normalize=normalize)
-            if not np.allclose(factory.theta0, kernel.theta):
-                return None
-        except Exception:
+        from ...inference import GramFactory
+        factory = GramFactory(inner, list(X), normalize=normalize)
+        if not np.allclose(factory.theta0, kernel.theta):
             return None
 
         import jax

@@ -1,10 +1,12 @@
 """Native (C++) host runtime: batch packing and job scheduling.
 
-Compiled lazily with g++ on first use and cached next to the source; all
+Compiled with g++ from ``packer.cpp`` on first use into a library named
+by the hash of the source and the compiler flags (not kept in git); all
 entry points degrade gracefully to the numpy implementations in
 :mod:`graphdot_tpu.graph.batch` when no compiler is available.
 """
 import ctypes
+import hashlib
 import os
 import subprocess
 import warnings
@@ -13,10 +15,29 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, 'packer.cpp')
-_LIB = os.path.join(_DIR, '_packer.so')
+_FLAGS = ['-O3', '-shared', '-fPIC']
 
 _lib = None
 _tried = False
+
+
+def _library_path():
+    with open(_SRC, 'rb') as f:
+        key = hashlib.sha256(f.read() + ' '.join(_FLAGS).encode())
+    return os.path.join(_DIR, f'_packer-{key.hexdigest()[:16]}.so')
+
+
+def _build(path):
+    """Compile into a private temporary file, then rename it into place:
+    concurrent first uses (test workers) never see a partial library."""
+    tmp = f'{path}.{os.getpid()}.tmp'
+    try:
+        subprocess.run(['g++', *_FLAGS, '-o', tmp, _SRC],
+                       check=True, capture_output=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():
@@ -25,14 +46,10 @@ def _load():
         return _lib
     _tried = True
     try:
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            subprocess.run(
-                ['g++', '-O3', '-march=native', '-shared', '-fPIC',
-                 '-o', _LIB, _SRC],
-                check=True, capture_output=True
-            )
-        lib = ctypes.CDLL(_LIB)
+        path = _library_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
 
         i32p = np.ctypeslib.ndpointer(np.int32, flags='C_CONTIGUOUS')
         i64p = np.ctypeslib.ndpointer(np.int64, flags='C_CONTIGUOUS')

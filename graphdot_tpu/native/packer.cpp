@@ -1,4 +1,4 @@
-// Native graph-batch packer — the host-side runtime component of the TPU
+// Native graph-batch packer — the host-side runtime component of this
 // build (the counterpart of the reference's OctileGraph construction,
 // graphdot/kernel/marginalized/_octilegraph.py:141-177, which packs sparse
 // octiles for the CUDA kernel; here we pack dense padded batch arrays for

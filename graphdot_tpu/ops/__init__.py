@@ -1,1 +1,1 @@
-"""Hand-written TPU kernels (Pallas)."""
+"""Hand-written GPU kernels (Pallas, Triton route)."""

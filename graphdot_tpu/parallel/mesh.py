@@ -1,6 +1,6 @@
 """Device mesh helpers.
 
-The TPU build's two parallel axes (SURVEY.md §2.9): 'pairs' — Gram-tile /
+This build's two parallel axes (SURVEY.md §2.9): 'pairs' — Gram-tile /
 graph-pair data parallelism — and 'chains' — MCMC chain / SMC particle
 parallelism. Multi-host meshes come for free from jax.devices() spanning
 hosts after jax.distributed.initialize().
@@ -12,11 +12,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Initialize multi-host JAX (DCN between hosts, ICI within a slice).
-    After this, ``jax.devices()`` spans all hosts and
-    :func:`make_mesh` builds pod-wide meshes. No-op when already
-    initialized or when arguments are resolvable from the TPU
-    environment."""
+    """Initialize multi-host JAX. After this, ``jax.devices()`` spans
+    all hosts and :func:`make_mesh` builds meshes across them. Pass the
+    coordinator address (``host:port``), process count and process id;
+    no-op when already initialized."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

@@ -1,45 +1,38 @@
-"""Analytic FLOP model and MFU accounting for the MLGK solver benches.
+"""Analytic FLOP model and device peaks for the MLGK solver benches.
 
 The reference's IPDPS'20 artifact is a throughput paper; its CUDA kernel
 (``graphdot/cpp/marginalized_kernel.h:61-490``) was evaluated in
-FLOP-accounted terms. This module provides the TPU analogue: an analytic
-cost model of the edge-factored PCG matvec, combined with measured
-per-pair CG iteration counts (``GramFactory.iteration_stats``) to report
-
-- ``useful``  — algorithmic FLOPs at the true (unpadded, unpacked) graph
-  dimensions, one MXU pass per contraction: the work a perfect machine
-  would do.
-- ``executed`` — FLOPs the fused Pallas kernel actually pushes through
-  the MXU: padded class dims, block-diagonal pair packing, the 2-pass
-  split-operand precision scheme, convergence-unroll rounding, and
-  whole-block iteration (every pair in a Pallas program's block of
-  ``block_pairs`` super-pairs rides until the slowest one converges).
-
-``useful / dt / peak`` is the MFU figure; ``executed / dt / peak`` bounds
-how much of the gap is padding/packing overhead vs non-MXU time (loop
-control, VPU elementwise, DMA).
+FLOP-accounted terms. This module provides the same accounting: an
+analytic cost model of the edge-factored PCG matvec, combined with
+measured per-pair CG iteration counts (``GramFactory.iteration_stats``),
+gives the ``useful`` FLOPs of a Gram build (true graph dimensions, one
+pass per contraction), and :func:`device_peak_flops` the peak to divide
+a measured rate by.
 """
 import numpy as np
 
-# Dense bf16 MXU peak per chip (FLOP/s). Every contraction pass in the
-# solver is a bf16 MXU pass (the split-operand scheme issues 2 of them
-# per f32-accurate contraction), so the bf16 peak is the right roofline.
+#: dense peak FLOP/s by ``device_kind`` and operand precision (NVIDIA
+#: H100 Tensor Core GPU data sheet, SXM5, without sparsity; 'fp32' is
+#: the CUDA-core rate outside the tensor cores)
 PEAK_FLOPS = {
-    'TPU v4': 275e12,
-    'TPU v5 lite': 197e12,     # v5e
-    'TPU v5': 459e12,          # v5p
-    'TPU v5p': 459e12,
-    'TPU v6 lite': 918e12,     # v6e / Trillium
+    'NVIDIA H100 80GB HBM3': {
+        'bf16': 989e12, 'tf32': 495e12, 'fp32': 67e12,
+    },
 }
 
 
-def device_peak_flops(device=None):
-    """bf16 MXU peak of ``device`` (default: jax.devices()[0]), or None
-    if the device kind is not in the table."""
+def device_peak_flops(device=None, precision='tf32'):
+    """Peak FLOP/s of ``device`` (default: jax.devices()[0]) at
+    ``precision`` ('bf16', 'tf32' or 'fp32'). A device kind that is not
+    in :data:`PEAK_FLOPS` is an error."""
     if device is None:
         import jax
         device = jax.devices()[0]
-    return PEAK_FLOPS.get(getattr(device, 'device_kind', None))
+    kind = getattr(device, 'device_kind', None)
+    if kind not in PEAK_FLOPS:
+        raise KeyError(f'no peak FLOP/s on record for device kind '
+                       f'{kind!r}; known: {sorted(PEAK_FLOPS)}')
+    return PEAK_FLOPS[kind][precision]
 
 
 def matvec_flops(m1, m2, n1, n2):
@@ -92,14 +85,12 @@ def load_iteration_stats(path):
     return stats
 
 
-def gram_flop_report(factory, theta, include_executed=True,
-                     stats=None):
-    """FLOP totals for one Gram build of ``factory`` at ``theta``.
+def gram_flop_report(factory, theta, stats=None):
+    """Useful FLOPs of one Gram build of ``factory`` at ``theta``.
 
-    Returns a dict with ``useful_flops``, ``executed_flops`` (None when
-    the executed model does not apply, e.g. dense mode), and the
-    iteration stats used. Pass precomputed ``stats`` (e.g. from
-    :func:`load_iteration_stats`) to skip the instrumented solves.
+    Returns a dict with ``useful_flops`` and the iteration stats used.
+    Pass precomputed ``stats`` (e.g. from :func:`load_iteration_stats`)
+    to skip the instrumented solves.
     """
     if stats is None:
         stats = factory.iteration_stats(theta)
@@ -112,12 +103,10 @@ def gram_flop_report(factory, theta, include_executed=True,
         a = np.asarray(a)
         return a[:, None] if a.ndim == 1 else a
 
-    # per-member-pair iteration counts ((i, j) keyed, both orders).
-    # When ``stats`` came from a union-packed factory, every member
-    # pair of a super-pair is charged the (shared) super-pair count —
-    # a slight useful-FLOP overcount; record the cache with a
-    # union=False factory for exact per-pair counts.
-    pair_iters = {}
+    # When ``stats`` came from a union-packed factory, every member pair
+    # of a super-pair is charged the (shared) super-pair count — a slight
+    # overcount; record the cache with a union=False factory for exact
+    # per-pair counts.
     useful = 0.0
     for grp in stats:
         gi2, gj2 = _2d(grp['gi']), _2d(grp['gj'])
@@ -131,52 +120,4 @@ def gram_flop_report(factory, theta, include_executed=True,
                     n1, m1 = dims[a]
                     n2, m2 = dims[b]
                     useful += float(it) * matvec_flops(m1, m2, n1, n2)
-                    pair_iters[(int(a), int(b))] = int(it)
-                    pair_iters[(int(b), int(a))] = int(it)
-
-    executed = None
-    if include_executed and factory._mode == 'pallas' \
-            and factory._groups is not None:
-        from ..ops import pallas_pcg as PP
-        executed = 0.0
-        for grp in factory._groups:
-            # operand dims as the pallas solver sees them (union dims
-            # for k > 1 groups)
-            M1 = grp['batch1']['esrc'].shape[1]
-            M2 = grp['batch2']['esrc'].shape[1]
-            k1, k2 = grp.get('k1', 1), grp.get('k2', 1)
-            N1, N2 = k1 * grp['ca'], k2 * grp['cb']
-            gi2, gj2 = _2d(grp['gi']), _2d(grp['gj'])
-            S = gi2.shape[0]
-            # per-(super-)job iterations: slowest member pair
-            job_iters = np.zeros(S, dtype=np.int64)
-            for s in range(S):
-                worst = 1
-                for a in gi2[s]:
-                    if a < 0:
-                        continue
-                    for b in gj2[s]:
-                        if b < 0:
-                            continue
-                        worst = max(worst,
-                                    pair_iters.get((int(a), int(b)), 1))
-                job_iters[s] = worst
-            # shared resolution incl. env overrides, so the model
-            # matches what the solver actually ran (ADVICE r4)
-            k, B, unroll = PP.resolve_pack_params(S, M1, M2, N1, N2)
-            per_iter = matvec_flops(k * M1, k * M2, k * N1, k * N2) \
-                * B * 2                       # 2-pass split-operand
-            # jobs -> packed blocks of k -> programs of B; the whole
-            # block iterates until its slowest member converges,
-            # rounded up to the convergence-check unroll.
-            S_pad = -(-S // (k * B)) * (k * B)
-            iters = np.pad(job_iters, (0, S_pad - S))
-            per_prog = iters.reshape(-1, k * B).max(axis=1)
-            per_prog = -(-per_prog // unroll) * unroll
-            executed += float(per_prog.sum()) * per_iter
-
-    return {
-        'useful_flops': useful,
-        'executed_flops': executed,
-        'stats': stats,
-    }
+    return {'useful_flops': useful, 'stats': stats}

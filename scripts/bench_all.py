@@ -1,19 +1,15 @@
 #!/usr/bin/env python
-"""Benchmark trend harness (VERDICT r3 #8): run all four benches, parse
-their one-line JSON, compute vs_prev_round per bench, and append a
-round-stamped record to ``BENCH_TREND.json`` at the repo root.
+"""Run all four benches, one after another, each in its own process, and
+print each one's JSON line.
 
 The reference tracks init/1st-launch/2nd-launch timings across batch
-sizes (``benchmark/kernel/marginalized/time_kernel.py:33-72``); this is
-the cross-round equivalent for the TPU benches. Run on a TPU host:
+sizes (``benchmark/kernel/marginalized/time_kernel.py:33-72``); this runs
+the repository's four benches the same way. One bench at a time: a JAX
+process reserves most of the card's memory, so two at once would fail.
 
-    python scripts/bench_all.py [--round N] [--only gram,nuts,...]
-
-Each bench runs in its own process (fresh XLA client, no VMEM/compile
-cache interference between benches).
+    python scripts/bench_all.py [--only gram,nuts,...]
 """
 import argparse
-import glob
 import json
 import os
 import subprocess
@@ -21,7 +17,6 @@ import sys
 import time
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
-TREND = os.path.join(ROOT, 'BENCH_TREND.json')
 
 BENCHES = {
     'gram': ('bench.py', 900),
@@ -37,82 +32,26 @@ def run_bench(script, timeout):
         [sys.executable, os.path.join(ROOT, script)],
         capture_output=True, text=True, timeout=timeout, cwd=ROOT,
     )
-    wall = time.time() - t0
-    record = None
-    for line in proc.stdout.splitlines():
-        line = line.strip()
-        if line.startswith('{'):
-            try:
-                record = json.loads(line)
-            except json.JSONDecodeError:
-                continue
-    details = [ln for ln in proc.stderr.splitlines()
-               if ln.startswith('#')]
-    if record is None:
-        return {'error': f'no JSON line (rc={proc.returncode})',
-                'stderr_tail': proc.stderr.splitlines()[-5:],
-                'wall_s': round(wall, 1)}
-    record['wall_s'] = round(wall, 1)
-    if details:
-        record['details_lines'] = details
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{')]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(
+            f'{script} failed (rc={proc.returncode}):\n'
+            + '\n'.join(proc.stderr.splitlines()[-20:]))
+    record = json.loads(lines[-1])
+    record['wall_s'] = time.time() - t0
     return record
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument('--round', type=int, default=None)
     ap.add_argument('--only', type=str, default=None,
-                    help='comma-separated subset of '
-                         f'{sorted(BENCHES)}')
+                    help=f'comma-separated subset of {sorted(BENCHES)}')
     args = ap.parse_args()
-
-    rnd = args.round
-    if rnd is None:
-        # infer: one BENCH_r{N}.json per completed round
-        rnd = len(glob.glob(os.path.join(ROOT, 'BENCH_r*.json'))) + 1
-
-    names = list(BENCHES)
-    if args.only:
-        names = [n for n in args.only.split(',') if n in BENCHES]
-
-    trend = []
-    if os.path.exists(TREND):
-        with open(TREND) as f:
-            trend = json.load(f)
-    prev = trend[-1]['results'] if trend else {}
-
-    results = {}
+    names = args.only.split(',') if args.only else list(BENCHES)
     for name in names:
         script, timeout = BENCHES[name]
-        print(f'== {name} ({script}) ==', flush=True)
-        try:
-            rec = run_bench(script, timeout)
-        except subprocess.TimeoutExpired:
-            rec = {'error': f'timeout after {timeout}s'}
-        if 'value' in rec and name in prev and 'value' in prev[name]:
-            rec['vs_prev_round'] = round(
-                rec['value'] / prev[name]['value'], 3)
-        results[name] = rec
-        print(json.dumps(rec, indent=2), flush=True)
-
-    # one entry per round; re-running within a round merges by bench
-    # name (so --only refreshes a single row without dropping the
-    # others) with the new results taking precedence
-    merged = {}
-    for e in trend:
-        if e['round'] == rnd:
-            merged.update(e['results'])
-    merged.update(results)
-    entry = {
-        'round': rnd,
-        'timestamp': time.strftime('%Y-%m-%dT%H:%M:%S'),
-        'results': merged,
-    }
-    trend = [e for e in trend if e['round'] != rnd] + [entry]
-    trend.sort(key=lambda e: e['round'])
-    with open(TREND, 'w') as f:
-        json.dump(trend, f, indent=2)
-    print(f'wrote {TREND} ({len(trend)} rounds)')
+        print(json.dumps({'bench': name, **run_bench(script, timeout)}),
+              flush=True)
 
 
 if __name__ == '__main__':

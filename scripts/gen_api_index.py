@@ -2,10 +2,12 @@
 """Regenerate docs/api.md — module and public-symbol index."""
 import importlib
 import inspect
+import os
 import pkgutil
 import sys
 
-sys.path.insert(0, '/root/repo')
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import graphdot_tpu  # noqa: E402
 
@@ -48,7 +50,7 @@ def main():
             doc = first_line(getattr(obj, '__doc__', ''))
             out.append(f'- `{sym}`' + (f' — {doc}' if doc else ''))
         out.append('')
-    with open('/root/repo/docs/api.md', 'w') as f:
+    with open(os.path.join(ROOT, 'docs', 'api.md'), 'w') as f:
         f.write('\n'.join(out).rstrip() + '\n')
     print(f'{len(out)} lines written')
 

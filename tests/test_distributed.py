@@ -3,7 +3,7 @@
 JAX cluster, build a global mesh, and run a cross-process reduction.
 
 This is the single-host emulation of the multi-host path (DCN between
-hosts); it validates the coordinator wiring without TPU hardware.
+hosts); it validates the coordinator wiring on one machine.
 """
 import socket
 import subprocess

@@ -149,7 +149,7 @@ def test_kernel_induced_distance():
 def test_m3_metric_and_oracle_crosscheck():
     """The experimental M3 metric: zero self-distance, symmetry, and —
     the real point — its independent sparse-SciPy MLGK solve agrees with
-    the package's batched TPU solver on the same kernels."""
+    the package's batched solver on the same kernels."""
     from graphdot_tpu.dataset._atoms import make_atoms
     from graphdot_tpu.experimental.metric import M3
     from graphdot_tpu.graph import Graph
@@ -172,5 +172,5 @@ def test_m3_metric_and_oracle_crosscheck():
     mlgk = MarginalizedGraphKernel(
         m3.node_kernel, m3.edge_kernel, q=m3.q, backend='edge'
     )
-    R_tpu = mlgk([g1], [g2], nodal=True)
-    assert np.allclose(R_scipy, R_tpu, rtol=1e-4, atol=1e-5)
+    R_jax = mlgk([g1], [g2], nodal=True)
+    assert np.allclose(R_scipy, R_jax, rtol=1e-4, atol=1e-5)

@@ -137,3 +137,41 @@ def test_repr_reconstructs():
         Product(),
     ]:
         assert isinstance(repr(k), str) and len(repr(k)) > 0
+
+
+_SYMPY_FORMS = {
+    'SquareExponential': (
+        'exp(-0.5 * (x - y)**2 * length_scale**-2)',
+        [('length_scale', np.float32, 1e-6, np.inf)], (0.7,)),
+    'RationalQuadratic': (
+        '(1 + (x - y)**2 / (2 * alpha * length_scale**2))**(-alpha)',
+        [('length_scale', np.float32, 1e-6, np.inf),
+         ('alpha', np.float32, 1e-3, np.inf)], (0.7, 2.5)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(_SYMPY_FORMS))
+def test_hand_written_kernels_equal_from_sympy(name):
+    """SquareExponential and RationalQuadratic, written out without
+    sympy, equal the from_sympy construction of the same expression in
+    value, jacobian, traced apply, hyperparameters and bounds."""
+    import jax.numpy as jnp
+    import graphdot_tpu.microkernel as mk
+    expr, specs, theta = _SYMPY_FORMS[name]
+    from graphdot_tpu.microkernel import MicroKernel
+    ref = MicroKernel.from_sympy(name, '', expr, ('x', 'y'), *specs,
+                                 minmax=(0, 1))(*theta)
+    k = getattr(mk, name)(*theta)
+    for x, y in [(0.3, 1.1), (2.0, 2.0), (-1.0, 3.0)]:
+        v, j = k(x, y, jac=True)
+        v_ref, j_ref = ref(x, y, jac=True)
+        assert np.isclose(v, v_ref, rtol=1e-12, atol=0)
+        assert np.allclose(j, j_ref, rtol=1e-10, atol=1e-300)
+    X = jnp.linspace(-1.0, 2.0, 7)
+    t = jnp.asarray(k.flat_theta, dtype=jnp.float32)
+    assert np.allclose(k.apply(t, X[:, None], X[None, :]),
+                       ref.apply(t, X[:, None], X[None, :]),
+                       rtol=1e-6)
+    assert k.flat_theta == ref.flat_theta and k.bounds == ref.bounds
+    assert k.minmax == ref.minmax and repr(k) == repr(ref)
+    assert k.n_theta == ref.n_theta and k.name == ref.name

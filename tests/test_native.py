@@ -102,3 +102,19 @@ def test_native_matches_python_packing():
             b_python.ew[b][:b_python.n_edge[b]].tolist(),
         ))
         assert na == py
+
+
+def test_library_built_from_source():
+    """The library is compiled from packer.cpp under a name keyed by
+    the source and the compiler flags, so a changed source or flag set
+    never loads a stale build."""
+    import os
+    path = native._library_path()
+    assert os.path.basename(path).startswith('_packer-')
+    assert os.path.exists(path)
+    flags = native._FLAGS
+    try:
+        native._FLAGS = flags + ['-DGRAPHDOT_TEST_KEY']
+        assert native._library_path() != path
+    finally:
+        native._FLAGS = flags

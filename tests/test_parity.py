@@ -1,4 +1,4 @@
-"""End-to-end numerical parity: GPR predictions through the TPU solver
+"""End-to-end numerical parity: GPR predictions through the JAX solver
 must match predictions computed from an independently-built oracle Gram
 matrix (dense SciPy CG), fulfilling the BASELINE requirement that model
 outputs match the reference within tolerance."""
@@ -62,7 +62,7 @@ def test_gpr_predictions_match_oracle(q):
     knode = TensorProduct(element=KroneckerDelta(0.2))
     kedge = TensorProduct(length=SquareExponential(0.3))
 
-    tpu_kernel = Normalization(
+    jax_kernel = Normalization(
         MarginalizedGraphKernel(knode, kedge, q=q)
     )
     oracle_kernel = OracleKernel(knode, kedge, q)
@@ -71,16 +71,16 @@ def test_gpr_predictions_match_oracle(q):
     Xtr = [graphs[i] for i in train]
     Xte = [graphs[i] for i in test]
 
-    gpr_tpu = GaussianProcessRegressor(tpu_kernel, alpha=1e-6)
-    gpr_tpu.fit(Xtr, y[train])
-    m_tpu, s_tpu = gpr_tpu.predict(Xte, return_std=True)
+    gpr_jax = GaussianProcessRegressor(jax_kernel, alpha=1e-6)
+    gpr_jax.fit(Xtr, y[train])
+    m_jax, s_jax = gpr_jax.predict(Xte, return_std=True)
 
     gpr_ref = GaussianProcessRegressor(oracle_kernel, alpha=1e-6)
     gpr_ref.fit(Xtr, y[train])
     m_ref, s_ref = gpr_ref.predict(Xte, return_std=True)
 
-    assert np.allclose(m_tpu, m_ref, rtol=1e-4, atol=1e-4)
-    assert np.allclose(s_tpu, s_ref, rtol=1e-3, atol=1e-4)
+    assert np.allclose(m_jax, m_ref, rtol=1e-4, atol=1e-4)
+    assert np.allclose(s_jax, s_ref, rtol=1e-3, atol=1e-4)
 
 
 def test_gpr_factory_engine_matches_host_path():

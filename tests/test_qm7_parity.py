@@ -55,7 +55,7 @@ def _kernels(q=0.05):
 
 
 def test_qm7_gram_matches_oracle(qm7):
-    """The TPU solver's normalized Gram over real-geometry molecular
+    """The JAX solver's normalized Gram over real-geometry molecular
     graphs agrees with the dense SciPy oracle."""
     graphs, _, _ = qm7
     knode, kedge, q = _kernels()
@@ -67,7 +67,7 @@ def test_qm7_gram_matches_oracle(qm7):
 
 def _gpr_parity(graphs, energies, train, test, optimizer=None):
     """Shared body of the fast/slow GPR parity tests: fit + predictive
-    mean/std with the TPU solver vs the dense SciPy oracle Gram."""
+    mean/std with the JAX solver vs the dense SciPy oracle Gram."""
     knode, kedge, q = _kernels()
     Xtr = [graphs[i] for i in train]
     Xte = [graphs[i] for i in test]
@@ -78,15 +78,15 @@ def _gpr_parity(graphs, energies, train, test, optimizer=None):
         gpr.fit(Xtr, energies[train])
         return gpr.predict(Xte, return_std=True)
 
-    m_tpu, s_tpu = fit_predict(
+    m_jax, s_jax = fit_predict(
         Normalization(MarginalizedGraphKernel(knode, kedge, q=q)))
     m_ref, s_ref = fit_predict(OracleKernel(knode, kedge, q))
 
     scale = np.abs(energies).mean()
-    assert np.allclose(m_tpu, m_ref, atol=1e-3 * scale)
-    assert np.allclose(s_tpu, s_ref, rtol=1e-2, atol=1e-3 * scale)
+    assert np.allclose(m_jax, m_ref, atol=1e-3 * scale)
+    assert np.allclose(s_jax, s_ref, rtol=1e-2, atol=1e-3 * scale)
     # and the model is actually predictive on the energies
-    assert np.corrcoef(m_tpu, energies[test])[0, 1] > 0.5
+    assert np.corrcoef(m_jax, energies[test])[0, 1] > 0.5
 
 
 def test_qm7_gpr_predictions_match_oracle_fast(qm7):
@@ -101,7 +101,7 @@ def test_qm7_gpr_predictions_match_oracle_fast(qm7):
 @pytest.mark.slow
 def test_qm7_gpr_predictions_match_oracle(qm7):
     """Full GPR pipeline (fit + predictive mean/std) on QM7 energies:
-    TPU solver vs oracle Gram, at the north-star problem size."""
+    JAX solver vs oracle Gram, at the north-star problem size."""
     graphs, energies, _ = qm7
     _gpr_parity(graphs, energies,
                 train=list(range(0, 24)), test=list(range(24, 32)))
